@@ -123,19 +123,3 @@ def test_mining_produces_loadable_bank(tmp_path):
     stream = encode_image(img, bank)
     out = api.decode_image(stream, bankmod.write_lut_file(bank))
     assert out.shape == img.shape
-
-
-@pytest.mark.slow
-def test_pallas_lut3d_tree_interpret():
-    """The Pallas 3D-LUT select-tree kernel (interpret mode == CPU-safe)."""
-    import jax.numpy as jnp
-    from yaik_tpu.ops.pallas_kernels import lut3d_tree
-    rng = np.random.default_rng(1)
-    G, Pn = 70, 16
-    idx = rng.integers(0, 64, (G, Pn)).astype(np.int32)
-    luts = rng.integers(0, 129, (G, 64, 3)).astype(np.int32)
-    pk = luts[:, :, 0] | (luts[:, :, 1] << 8) | (luts[:, :, 2] << 16)
-    out = np.asarray(lut3d_tree(jnp.asarray(idx.T), jnp.asarray(pk.T),
-                                interpret=True)).T
-    want = pk[np.arange(G)[:, None], idx]
-    assert np.array_equal(out, want)

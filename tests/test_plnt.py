@@ -10,7 +10,9 @@ from PIL import Image
 
 from tests.conftest import FIXTURES
 from yaik_tpu.decoder import reference as decref
+from yaik_tpu.decoder.reference import iter_chunks
 from yaik_tpu.encoder import plnt
+from yaik_tpu.entropy import zstd_backend as zstd
 from yaik_tpu.format.headers import (FileHeader, MAGIC, HeaderBase,
                                      PlaneTile)
 from yaik_tpu.ops import plane as ops
@@ -21,6 +23,26 @@ def _load(name):
     return rgb, rgb.transpose(2, 0, 1).astype(np.int32)
 
 
+def _plnt_payloads(stream: bytes):
+    """Each PLNT chunk with its zstd sections decompressed: (header fields
+    except the two compressed sizes, tile types, tile indices). Two zstd
+    builds compress the same input to different bytes, so this is what
+    byte-exactness means without the reference's zstd 1.3.4."""
+    out = []
+    for tag, off, body in iter_chunks(stream):
+        hdr = PlaneTile.unpack(body)
+        z0 = PlaneTile.size()
+        z1 = z0 + hdr.stream_size_tile_map
+        types = zstd.decompress(body[z0:z1], zstd.frame_content_size(
+            body[z0:z1]))
+        idx = zstd.decompress(body[z1:z1 + hdr.stream_size_tile_stream],
+                              hdr.expected_size_tile_stream)
+        out.append((tag, hdr.x, hdr.y, hdr.w, hdr.h,
+                    hdr.expected_size_tile_stream, hdr.version, hdr.format,
+                    types, idx))
+    return out
+
+
 @pytest.mark.parametrize("name", ["img64", "corr2d128"])
 def test_plnt_byte_exact(name):
     rgb, planes = _load(name)
@@ -28,7 +50,12 @@ def test_plnt_byte_exact(name):
     mine = (FileHeader(MAGIC, 1, w, h, 0).pack()
             + plnt.encode_plnt(planes, None, (0, 0, w, h))
             + struct.pack("<I", 0xDEADBEEF))
-    assert mine == (FIXTURES / f"{name}.plnt.yaik").read_bytes()
+    gold = (FIXTURES / f"{name}.plnt.yaik").read_bytes()
+    if zstd.IS_REFERENCE_ZSTD:
+        assert mine == gold
+    else:
+        assert mine[:FileHeader.size()] == gold[:FileHeader.size()]
+        assert _plnt_payloads(mine) == _plnt_payloads(gold)
 
 
 def test_plnt_table_roundtrip():

@@ -1,16 +1,10 @@
-"""Off-chip validation of the round-3 fast paths (VERDICT r3 weak #3).
+"""Merged-T3 priority layers (t3_merge_plan) on crafted streams whose
+tiles overlap on 2 and on 3+ passes - including the >2-layer fallback to
+the 6 size passes and the mixed merged/legacy batch layout, none of which
+any natural art stream reaches - plus the bench chain's salt hook.
 
-The TPU-only Pallas kernels (grad_plane merged gradient, lut3d_vals,
-lut3d_vals_dict, score48) run here in interpret mode against independent
-numpy models / the XLA forms, and the merged-T3 priority-layer re-blocking
-(t3_merge_plan) is exercised on crafted streams whose tiles overlap on 2
-and on 3+ passes — including the >2-layer fallback to the legacy 6-pass
-path and the mixed merged/legacy combine_t3_modes batching, none of which
-any natural art stream reaches.
-
-Reference semantics under test: YAIK_Gradient.cpp:28-201 (bilinear fill),
-YAIK_3DTile.cpp:965-1320 (per-pixel out = min + ((diff*LUT[idx])>>7)),
-EncoderContext.cpp:6421-6423 (48-pattern scoring).
+Reference semantics under test: YAIK_3DTile.cpp:965-1320 (per-pixel
+out = min + ((diff*LUT[idx])>>7)).
 """
 import struct
 
@@ -20,128 +14,6 @@ import pytest
 import jax.numpy as jnp
 
 from yaik_tpu.format import swizzle
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernels, interpret mode vs numpy models
-# ---------------------------------------------------------------------------
-
-def test_lut3d_vals_interpret():
-    """lut3d_vals == the YAIK_3DTile per-pixel math + bit-24 write mask."""
-    from yaik_tpu.ops.pallas_kernels import lut3d_vals
-    rng = np.random.default_rng(3)
-    G, P = 90, 16
-    idx = rng.integers(0, 64, (G, P)).astype(np.int32)
-    wm = rng.integers(0, 2, (G, P)).astype(np.int32)
-    raw = idx | (wm << 6)
-    luts = rng.integers(0, 129, (G, 64, 3)).astype(np.int64)
-    pk = (luts[:, :, 0] | (luts[:, :, 1] << 8)
-          | (luts[:, :, 2] << 16)).astype(np.int32)
-    cols = np.zeros((G, 7), np.int64)
-    cols[:, 0:3] = rng.integers(0, 256, (G, 3))         # min RGB
-    cols[:, 3:6] = rng.integers(0, 256, (G, 3))         # max RGB
-    cols[:, 6] = rng.integers(0, 2, G)                  # per-tile accept
-    out = np.asarray(lut3d_vals(
-        jnp.asarray(raw.T), jnp.asarray(pk.T),
-        jnp.asarray(cols.T.astype(np.int32)), interpret=True)).T
-
-    ent = luts[np.arange(G)[:, None], idx]              # [G, P, 3]
-    mn = cols[:, None, 0:3]
-    d = cols[:, None, 3:6] - mn
-    v = (mn + ((d * ent) >> 7)) & 0xFF                  # [G, P, 3]
-    want = (v[:, :, 0] | (v[:, :, 1] << 8) | (v[:, :, 2] << 16)
-            | ((wm & cols[:, None, 6]) << 24))
-    assert np.array_equal(out, want.astype(np.int32))
-
-
-def test_lut3d_vals_dict_interpret():
-    """lut3d_vals_dict == lut3d_vals with the per-tile table resolved
-    through the <=256-row in-kernel dictionary."""
-    from yaik_tpu.ops.pallas_kernels import lut3d_vals, lut3d_vals_dict
-    rng = np.random.default_rng(4)
-    G, P, U = 70, 16, 32
-    dict_tabs = rng.integers(0, 129, (U, 64, 3)).astype(np.int64)
-    loc = rng.integers(0, U, G).astype(np.int32)        # per-tile dict row
-    idx = rng.integers(0, 64, (G, P)).astype(np.int32)
-    wm = rng.integers(0, 2, (G, P)).astype(np.int32)
-    raw = idx | (wm << 6)
-    cols8 = np.zeros((G, 8), np.int32)
-    cols8[:, 0:3] = rng.integers(0, 256, (G, 3))
-    cols8[:, 3:6] = rng.integers(0, 256, (G, 3))
-    cols8[:, 6] = rng.integers(0, 2, G)
-    cols8[:, 7] = loc
-    # tab3 layout: [192, U] bf16 = three 64-entry channel tables stacked
-    tab3 = np.concatenate([dict_tabs[:, :, 0].T, dict_tabs[:, :, 1].T,
-                           dict_tabs[:, :, 2].T], axis=0)
-    got = np.asarray(lut3d_vals_dict(
-        jnp.asarray(raw.T), jnp.asarray(tab3, dtype=jnp.bfloat16),
-        jnp.asarray(cols8.T), interpret=True)).T
-
-    # oracle: the dense per-tile gather + lut3d_vals (itself tested above)
-    gathered = dict_tabs[loc]
-    pk = (gathered[:, :, 0] | (gathered[:, :, 1] << 8)
-          | (gathered[:, :, 2] << 16)).astype(np.int32)
-    want = np.asarray(lut3d_vals(
-        jnp.asarray(raw.T), jnp.asarray(pk.T),
-        jnp.asarray(cols8[:, :7].T), interpret=True)).T
-    assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("P", [16, 128])
-def test_score48_interpret(P):
-    """score48 == sum over alive pixels of min-over-8-points |c - q|^2
-    (EncoderContext.cpp:6421-6423), for 4x4 and 16x8 tile shapes."""
-    from yaik_tpu.ops.pallas_kernels import score48
-    rng = np.random.default_rng(5)
-    T, E = 10, 3
-    c = rng.integers(0, 64, (T, P, 3)).astype(np.int32)
-    alive = rng.integers(0, 2, (T, P)).astype(bool)
-    qpts = rng.integers(0, 64, (E, 48, 8, 3)).astype(np.int32)
-    got = np.asarray(score48(jnp.asarray(c), jnp.asarray(alive),
-                             jnp.asarray(qpts), interpret=True))
-    d = (c[:, :, None, None, None, :].astype(np.int64)
-         - qpts[None, None, :, :, :, :]) ** 2            # [T,P,E,48,8,3]
-    dist = d.sum(-1).min(-1)                             # [T,P,E,48]
-    want = (dist * alive[:, :, None, None]).sum(1)
-    assert np.array_equal(got, want.astype(np.int32))
-
-
-@pytest.mark.parametrize("H,W", [(64, 64), (64, 1024), (96, 128)])
-def test_grad_plane_interpret_vs_blend_chain(H, W):
-    """The merged-gradient packing (_grad_merged_pass + grad_plane) ==
-    the sequential 7x _blend_pass XLA chain, including overlapping
-    accepts (later passes overwrite) and edge tiles. W=1024 pins the
-    wide-image corner layout (W/4 + 1 = 257 columns needs CW=384; the
-    first 256-wide layout overflowed there - caught in review)."""
-    from yaik_tpu.decoder import jax_engine as je
-    rng = np.random.default_rng(6)
-    qh, qw = H // 4 + 1, W // 4 + 1
-    accepts, corners = [], []
-    for (sx, sy) in je.GRAD_SHIFTS:
-        tw, th = 1 << sx, 1 << sy
-        nty, ntx = H // th, W // tw
-        a = rng.random((nty, ntx)) < 0.3
-        accepts.append(a)
-        corners.append(rng.integers(0, 256, (qh, qw, 3)).astype(np.uint8))
-    plane0 = jnp.full((H, W), 0x808080, jnp.uint32)
-
-    legacy = plane0
-    for k, (sx, sy) in enumerate(je.GRAD_SHIFTS):
-        legacy = je._blend_pass(legacy, jnp.asarray(accepts[k]),
-                                jnp.asarray(corners[k]), sx, sy)
-    legacy = np.asarray(legacy)
-
-    code4 = np.zeros((H // 4, W // 4), np.uint8)
-    for k, (sx, sy) in enumerate(je.GRAD_SHIFTS):
-        tw, th = 1 << sx, 1 << sy
-        exp = np.repeat(np.repeat(accepts[k], th // 4, 0), tw // 4, 1)
-        region = code4[: exp.shape[0], : exp.shape[1]]
-        region[exp] = k + 1
-    corn = je._pack_grad_corners_host(np.stack(corners), H, W)
-    merged = np.asarray(je._grad_merged_pass(
-        plane0, jnp.asarray(corn), jnp.asarray(code4),
-        interpret=True))
-    assert np.array_equal(merged, legacy)
 
 
 # ---------------------------------------------------------------------------
@@ -207,10 +79,10 @@ def expanded_lut():
         lutmod.parse_lut_file((fix / "LutFile.lut").read_bytes()))
 
 
-def _jax_decode_plan(plan, expanded, t3_modes=None):
+def _jax_decode_plan(plan, expanded, layout=None):
     from yaik_tpu.decoder import jax_engine as je
     shifts, tab, args = je.plan_to_device_args(plan, expanded,
-                                               t3_modes=t3_modes)
+                                               layout=layout)
     out = np.asarray(je.decode_pixels(shifts, tab, *args,
                                       aspec=je.alpha_spec_of(plan)))
     return out[: plan.height, : plan.width]
@@ -226,8 +98,7 @@ def test_t3_overlap3_merge_returns_none_and_decodes(expanded_lut):
     stream = _craft_t3_stream(64, 64, overlap3=True)
     plan = plannermod.build_plan(stream, expanded_lut)
     assert je.t3_merge_plan(plan, expanded_lut) is None
-    mode = je.t3_pack_mode(plan, expanded_lut)
-    assert mode[0] == "legacy"
+    assert je.t3_pack_mode(plan, expanded_lut) == "legacy"
     want = refdec.decode(stream, expanded_lut)
     got = _jax_decode_plan(plan, expanded_lut)
     assert np.array_equal(got, want)
@@ -241,24 +112,24 @@ def test_t3_overlap2_merged_decode_matches(expanded_lut):
     from yaik_tpu.decoder import reference as refdec
     stream = _craft_t3_stream(64, 64, overlap3=False)
     plan = plannermod.build_plan(stream, expanded_lut)
-    m = je.t3_merge_plan(plan, expanded_lut)
-    assert m is not None
+    layers = je.t3_merge_plan(plan, expanded_lut)
+    assert layers is not None
     # the overlapping block really does occupy both layers
-    layers, dict_ok = m
     assert bool(layers[1][0].any())
-    mode = je.t3_pack_mode(plan, expanded_lut)
-    assert mode[0] == "merged"
+    layout = je.batch_layout([plan], expanded_lut)
+    assert layout[0] == "merged"
     want = refdec.decode(stream, expanded_lut)
-    got_merged = _jax_decode_plan(plan, expanded_lut, t3_modes=mode)
+    got_merged = _jax_decode_plan(plan, expanded_lut, layout=layout)
     got_legacy = _jax_decode_plan(plan, expanded_lut,
-                                  t3_modes=("legacy",) + (True,) * 6)
+                                  layout=("legacy",) + layout[1:])
     assert np.array_equal(got_merged, want)
     assert np.array_equal(got_legacy, want)
 
 
 def test_combine_t3_modes_mixed_batch(expanded_lut):
-    """A batch mixing a merge-capable and a >2-layer plan must AND down to
-    one legacy mode, and every member must decode bit-exactly under it."""
+    """A batch mixing a merge-capable and a >2-layer plan must combine to
+    one legacy layout, and every member must decode bit-exactly under
+    it."""
     from yaik_tpu.decoder import jax_engine as je
     from yaik_tpu.decoder import planner as plannermod
     from yaik_tpu.decoder import reference as refdec
@@ -266,319 +137,18 @@ def test_combine_t3_modes_mixed_batch(expanded_lut):
     s3 = _craft_t3_stream(64, 64, overlap3=True)
     plans = [plannermod.build_plan(s, expanded_lut) for s in (s2, s3)]
     modes = [je.t3_pack_mode(p, expanded_lut) for p in plans]
-    assert modes[0][0] == "merged" and modes[1][0] == "legacy"
-    combined = je.combine_t3_modes(modes, plans)
-    assert combined[0] == "legacy" and len(combined) == 7
+    assert modes == ["merged", "legacy"]
+    combined = je.batch_layout(plans, expanded_lut)
+    assert combined[0] == "legacy"
+    assert je.batch_layout(plans[:1], expanded_lut)[0] == "merged"
     for stream, plan in zip((s2, s3), plans):
         want = refdec.decode(stream, expanded_lut)
-        got = _jax_decode_plan(plan, expanded_lut, t3_modes=combined)
+        got = _jax_decode_plan(plan, expanded_lut, layout=combined)
         assert np.array_equal(got, want), "mixed-mode member mismatch"
-    # without plans, mixed modes must be rejected loudly
+    # a merged layout cannot be forced on a plan that needs 3 layers
     with pytest.raises(ValueError):
-        je.combine_t3_modes(modes)
-
-
-def test_lut3d_vals_dict2_fused_compose():
-    """The fused two-layer kernel == two lut3d_vals_dict resolves + the
-    B-over-A priority compose."""
-    from yaik_tpu.ops.pallas_kernels import lut3d_vals_dict, lut3d_vals_dict2
-    rng = np.random.default_rng(9)
-    G, P, U = 80, 16, 48
-    tabs = rng.integers(0, 129, (U, 64, 3)).astype(np.int64)
-    tab3 = np.concatenate([tabs[:, :, 0].T, tabs[:, :, 1].T,
-                           tabs[:, :, 2].T], axis=0)
-    tab3j = jnp.asarray(tab3, dtype=jnp.bfloat16)
-
-    def layer():
-        idx = rng.integers(0, 64, (G, P)).astype(np.int32)
-        wm = rng.integers(0, 2, (G, P)).astype(np.int32)
-        cols8 = np.zeros((G, 8), np.int32)
-        cols8[:, 0:3] = rng.integers(0, 256, (G, 3))
-        cols8[:, 3:6] = rng.integers(0, 256, (G, 3))
-        cols8[:, 6] = rng.integers(0, 2, G)
-        cols8[:, 7] = rng.integers(0, U, G)
-        return (idx | (wm << 6)), cols8
-
-    rawa, colsa = layer()
-    rawb, colsb = layer()
-    got = np.asarray(lut3d_vals_dict2(
-        jnp.asarray(rawa.T), jnp.asarray(rawb.T), tab3j,
-        jnp.asarray(colsa.T), jnp.asarray(colsb.T), interpret=True)).T
-
-    va = np.asarray(lut3d_vals_dict(jnp.asarray(rawa.T), tab3j,
-                                    jnp.asarray(colsa.T), interpret=True)).T
-    vb = np.asarray(lut3d_vals_dict(jnp.asarray(rawb.T), tab3j,
-                                    jnp.asarray(colsb.T), interpret=True)).T
-    wa, wb = va >> 24, vb >> 24
-    want = np.where(wb != 0, vb & 0xFFFFFF, va & 0xFFFFFF) | ((wa | wb) << 24)
-    assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("mode", [0, 1, 2])
-def test_tile2d_pallas_branch_matches_xla(mode):
-    """The 2DTL pass's fused-kernel route (3-channel kernel with a zeroed
-    slot, table shifted so the value bytes land at planes pa/pb) == the
-    XLA one-hot einsum form, for every plane pair."""
-    from yaik_tpu.decoder import jax_engine as je
-    rng = np.random.default_rng(23 + mode)
-    nty = ntx = 8
-    g, npx = nty * ntx, 64
-    sx = sy = 3
-    lut2_tab = jnp.asarray(
-        (rng.integers(0, 129, (40, 64)).astype(np.int64)
-         | (rng.integers(0, 129, (40, 64)).astype(np.int64) << 8))
-        .astype(np.int32))
-    accept = jnp.asarray(rng.random((nty, ntx)) < 0.6)
-    rows = jnp.asarray(rng.integers(0, 40, g).astype(np.int32))
-    colors = jnp.asarray(rng.integers(0, 256, (g, 4)).astype(np.uint8))
-    packed = jnp.asarray((rng.integers(0, 64, (g, npx))
-                          | (rng.integers(0, 2, (g, npx)) << 6))
-                         .astype(np.uint8))
-    plane0 = jnp.asarray(rng.integers(0, 1 << 24, (nty * 8, ntx * 8))
-                         .astype(np.uint32))
-    xla = je._tile2d_pass(plane0, lut2_tab, accept, rows, colors, packed,
-                          mode, sx, sy)
-    pallas = je._tile2d_pass(plane0, lut2_tab, accept, rows, colors,
-                             packed, mode, sx, sy, _interpret=True)
-    assert np.array_equal(np.asarray(pallas), np.asarray(xla))
-
-
-def test_lut3d_vals_dict2p_packed_matches_unpacked():
-    """The byte-packed fused kernel (lut3d_vals_dict2p: 4 idx bytes per
-    i32 lane, 8 tile columns in 2 lanes) == lut3d_vals_dict2 on the
-    equivalent unpacked operands — the i32-inflation attack must be
-    bit-invisible."""
-    from yaik_tpu.ops.pallas_kernels import (lut3d_vals_dict2,
-                                             lut3d_vals_dict2p)
-    rng = np.random.default_rng(13)
-    G, P, U = 100, 16, 48
-    tabs = rng.integers(0, 129, (U, 64, 3)).astype(np.int64)
-    cat = np.concatenate(
-        [tabs[:, :, 0].T, tabs[:, :, 1].T, tabs[:, :, 2].T], axis=0)
-    tab3 = jnp.asarray(cat, dtype=jnp.bfloat16)
-    tab3_s8 = jnp.asarray(cat - 1, dtype=jnp.int8)   # dict2p: entry-1 s8
-
-    def layer():
-        idx = rng.integers(0, 64, (G, P)).astype(np.int32)
-        wm = rng.integers(0, 2, (G, P)).astype(np.int32)
-        raw = idx | (wm << 6)
-        cols8 = np.zeros((G, 8), np.int32)
-        cols8[:, 0:3] = rng.integers(0, 256, (G, 3))
-        cols8[:, 3:6] = rng.integers(0, 256, (G, 3))
-        cols8[:, 6] = rng.integers(0, 2, G)
-        cols8[:, 7] = rng.integers(0, U, G)
-        p4 = raw.reshape(G, 4, 4)
-        idx4 = (p4[:, :, 0] | (p4[:, :, 1] << 8) | (p4[:, :, 2] << 16)
-                | (p4[:, :, 3] << 24)).T
-        c2 = np.stack([
-            cols8[:, 0] | (cols8[:, 1] << 8) | (cols8[:, 2] << 16)
-            | (cols8[:, 6] << 24),
-            cols8[:, 3] | (cols8[:, 4] << 8) | (cols8[:, 5] << 16)
-            | (cols8[:, 7] << 24)], axis=0).astype(np.int32)
-        return raw, cols8, idx4, c2
-
-    rawa, colsa, i4a, c2a = layer()
-    rawb, colsb, i4b, c2b = layer()
-    got = np.asarray(lut3d_vals_dict2p(
-        jnp.asarray(i4a), jnp.asarray(i4b), tab3_s8,
-        jnp.asarray(c2a), jnp.asarray(c2b), interpret=True))
-    want = np.asarray(lut3d_vals_dict2(
-        jnp.asarray(rawa.T), jnp.asarray(rawb.T), tab3,
-        jnp.asarray(colsa.T), jnp.asarray(colsb.T), interpret=True))
-    # contract: write bits identical everywhere; payload identical where
-    # the write bit is set. Unwritten lanes are dead values no consumer
-    # reads (the blend masks on bit 24) and the per-block work elision
-    # legitimately skips computing them.
-    assert np.array_equal(got >> 24, want >> 24)
-    w = (want >> 24) != 0
-    assert np.array_equal((got & 0xFFFFFF)[w], (want & 0xFFFFFF)[w])
-
-
-def test_lut3d_vals_dict2p_elision_tiers():
-    """The per-block elision tiers (empty layer; all-indices-<16 shallow
-    tree) produce masked-identical output to the full tree — crafted
-    blocks pin each tier, including the wmask-bit-6-must-not-force-deep
-    case and a single idx=16 byte forcing the deep tree."""
-    from yaik_tpu.ops.pallas_kernels import (lut3d_vals_dict2,
-                                             lut3d_vals_dict2p)
-    rng = np.random.default_rng(17)
-    G, P, U = 64, 16, 8
-    tabs = rng.integers(0, 129, (U, 64, 3)).astype(np.int64)
-    cat = np.concatenate(
-        [tabs[:, :, 0].T, tabs[:, :, 1].T, tabs[:, :, 2].T], axis=0)
-    tab3 = jnp.asarray(cat, dtype=jnp.bfloat16)
-    tab3_s8 = jnp.asarray(cat - 1, dtype=jnp.int8)
-
-    def build(raw, cols8):
-        p4 = raw.reshape(G, 4, 4)
-        idx4 = (p4[:, :, 0] | (p4[:, :, 1] << 8) | (p4[:, :, 2] << 16)
-                | (p4[:, :, 3] << 24)).T
-        c2 = np.stack([
-            cols8[:, 0] | (cols8[:, 1] << 8) | (cols8[:, 2] << 16)
-            | (cols8[:, 6] << 24),
-            cols8[:, 3] | (cols8[:, 4] << 8) | (cols8[:, 5] << 16)
-            | (cols8[:, 7] << 24)], axis=0).astype(np.int32)
-        return idx4, c2
-
-    def cols(acc):
-        c = np.zeros((G, 8), np.int32)
-        c[:, 0:3] = rng.integers(0, 256, (G, 3))
-        c[:, 3:6] = rng.integers(0, 256, (G, 3))
-        c[:, 6] = acc
-        c[:, 7] = rng.integers(0, U, G)
-        return c
-
-    cases = []
-    # tier: layer fully empty (acc all zero) but wmask bits set
-    cases.append((rng.integers(0, 64, (G, P)) | (1 << 6), cols(0)))
-    # tier: shallow — idx < 16 everywhere, wmask bits on (bit 6 set must
-    # NOT force the deep tree)
-    cases.append((rng.integers(0, 16, (G, P)) | (1 << 6), cols(1)))
-    # tier: deep forced by a single idx=16 byte
-    shallow = rng.integers(0, 16, (G, P))
-    shallow[3, 5] = 16
-    cases.append((shallow | (rng.integers(0, 2, (G, P)) << 6), cols(1)))
-    for rawa, colsa in [(c[0].astype(np.int32), c[1]) for c in cases]:
-        rawb = (rng.integers(0, 16, (G, P)) | (1 << 6)).astype(np.int32)
-        colsb = cols(1)
-        i4a, c2a = build(rawa, colsa)
-        i4b, c2b = build(rawb, colsb)
-        got = np.asarray(lut3d_vals_dict2p(
-            jnp.asarray(i4a), jnp.asarray(i4b), tab3_s8,
-            jnp.asarray(c2a), jnp.asarray(c2b), interpret=True))
-        want = np.asarray(lut3d_vals_dict2(
-            jnp.asarray(rawa.T), jnp.asarray(rawb.T), tab3,
-            jnp.asarray(colsa.T), jnp.asarray(colsb.T), interpret=True))
-        assert np.array_equal(got >> 24, want >> 24)
-        w = (want >> 24) != 0
-        assert np.array_equal((got & 0xFFFFFF)[w], (want & 0xFFFFFF)[w])
-
-
-def test_tile3d_merged2_pass_interpret(expanded_lut):
-    """_tile3d_merged2_pass (fused dispatch, interpret mode) == the two
-    sequential _tile3d_pass layers on a real 2-layer-overlap plan."""
-    import jax
-
-    from yaik_tpu.decoder import jax_engine as je
-    from yaik_tpu.decoder import planner as plannermod
-    stream = _craft_t3_stream(64, 64, overlap3=False)
-    plan = plannermod.build_plan(stream, expanded_lut)
-    mode = je.t3_pack_mode(plan, expanded_lut)
-    assert mode == ("merged", True)
-    shifts, tab, args = je.plan_to_device_args(plan, expanded_lut,
-                                               t3_modes=mode)
-    (grad_accepts, grad_corners, t3a, t3r, t3c, t3p, t3d,
-     *rest) = args
-    plane0 = jnp.full((64, 64), 0x808080, jnp.uint32)
-    tabj = jnp.asarray(np.asarray(tab))
-    legacy = plane0
-    for k, (sx, sy) in enumerate(je.MERGED_T3_SHIFTS):
-        # args carry the plan-time packed operands; the legacy oracle
-        # consumes them through the same in-graph unpack decode_core's
-        # fallback uses
-        rws, cols, pk = je._unpack_merged_layer(jnp.asarray(t3p[k]),
-                                                jnp.asarray(t3c[k]))
-        legacy = je._tile3d_pass(legacy, tabj, jnp.asarray(t3a[k]),
-                                 rws, cols, pk,
-                                 sx, sy, dict_rows=jnp.asarray(t3d[k]))
-    fused = je._tile3d_merged2_pass(
-        plane0, tabj, [jnp.asarray(a) for a in t3a],
-        [jnp.asarray(r) for r in t3r],
-        [jnp.asarray(c) for c in t3c],
-        [jnp.asarray(pk) for pk in t3p],
-        jnp.asarray(t3d[0]), interpret=True)
-    assert np.array_equal(np.asarray(fused), np.asarray(legacy))
-
-
-def test_fused_t3_d1_compose_interpret(expanded_lut):
-    """The composed one-blend T3+1D tail (compose_d1 path) == the
-    sequential merged-T3 blend + _d1_pass on a real fixture plan."""
-    import pathlib
-
-    import jax
-
-    from yaik_tpu.decoder import jax_engine as je
-    from yaik_tpu.decoder import planner as plannermod
-    fix = pathlib.Path(__file__).parent / "fixtures"
-    stream = (fix / "img64.yaik").read_bytes()
-    plan = plannermod.build_plan(stream, expanded_lut)
-    mode = je.t3_pack_mode(plan, expanded_lut)
-    assert mode[0] == "merged" and mode[1], "fixture no longer merges"
-    shifts, tab, args = je.plan_to_device_args(plan, expanded_lut,
-                                               t3_modes=mode)
-    (grad_accepts, grad_corners, t3a, t3r, t3c, t3p, t3d,
-     d1p, d1i, d1w, *rest) = args
-    h8, w8 = plan.height, plan.width
-    tabj = jnp.asarray(np.asarray(tab))
-    # a non-trivial starting plane: the gradient stage via the XLA chain
-    plane = jnp.full((h8, w8), 0x808080, jnp.uint32)
-    for k, (sx, sy) in enumerate(je.GRAD_SHIFTS):
-        plane = je._blend_pass(plane, jnp.asarray(grad_accepts[k]),
-                               jnp.asarray(grad_corners[k]), sx, sy)
-
-    t3aj = [jnp.asarray(a) for a in t3a]
-    t3rj = [jnp.asarray(r) for r in t3r]
-    t3cj = [jnp.asarray(c.astype(np.int32)) for c in t3c]
-    t3pj = [jnp.asarray(p.astype(np.int32)) for p in t3p]
-    dj = jnp.asarray(t3d[0])
-    seq = je._tile3d_merged2_pass(plane, tabj, t3aj, t3rj, t3cj, t3pj, dj,
-                                  interpret=True)
-    seq = je._d1_pass(seq, jnp.asarray(d1p), jnp.asarray(d1i),
-                      jnp.asarray(d1w), h8, w8)
-
-    # the in-kernel d1 compose (decode_core's compose_d1 path)
-    V, m = je._tile3d_merged2_pass(
-        None, tabj, t3aj, t3rj, t3cj, t3pj, dj, interpret=True,
-        d1=(jnp.asarray(d1i), jnp.asarray(d1p), jnp.asarray(d1w)))
-    composed = plane ^ ((plane ^ V) & m)
-    assert np.array_equal(np.asarray(composed), np.asarray(seq))
-
-
-def test_grad_plane_final_interpret_vs_split():
-    """The round-4 fused epilogue (_grad_merged_final: gradient blend over
-    the 0x808080 background + composed T3+1D apply with a per-CHANNEL
-    mask, one dispatch) == the split form (_grad_merged_pass then the XLA
-    RMW blend), including pixels where only one channel writes."""
-    from yaik_tpu.decoder import jax_engine as je
-    rng = np.random.default_rng(11)
-    H = W = 64
-    qh, qw = H // 4 + 1, W // 4 + 1
-    corners = je._pack_grad_corners_host(np.stack(
-        [rng.integers(0, 256, (qh, qw, 3)).astype(np.uint8)
-         for _ in je.GRAD_SHIFTS]), H, W)
-    code4 = rng.integers(0, 8, (H // 4, W // 4)).astype(np.uint8)
-    vc = jnp.asarray(rng.integers(0, 1 << 24, (H, W)).astype(np.uint32))
-    # per-channel mask: each byte independently 0x00 or 0xFF
-    mbits = rng.random((H, W, 3)) < 0.4
-    mc = jnp.asarray((mbits[..., 0] * 0xFF
-                      + mbits[..., 1] * 0xFF00
-                      + mbits[..., 2] * 0xFF0000).astype(np.uint32))
-
-    plane0 = jnp.full((H, W), 0x808080, jnp.uint32)
-    split = je._grad_merged_pass(plane0, jnp.asarray(corners),
-                                 jnp.asarray(code4), interpret=True)
-    split = split ^ ((split ^ vc) & mc)
-
-    fused = je._grad_merged_final(jnp.asarray(corners), jnp.asarray(code4),
-                                  vc, mc, interpret=True)
-    assert np.array_equal(np.asarray(fused), np.asarray(split))
-
-
-@pytest.mark.parametrize("H,W", [(64, 64), (96, 128), (512, 512)])
-def test_corner_packers_host_device_agree(H, W):
-    """The plan-time (resident) and in-graph (light-upload) corner
-    packers must produce the identical blocked layout - the kernel's
-    dynamic-slice offsets are computed against it."""
-    from yaik_tpu.decoder import jax_engine as je
-    rng = np.random.default_rng(31)
-    qh, qw = H // 4 + 1, W // 4 + 1
-    corners = np.stack([rng.integers(0, 256, (qh, qw, 3)).astype(np.uint8)
-                        for _ in je.GRAD_SHIFTS])
-    host = je._pack_grad_corners_host(corners, H, W)
-    planar = jnp.asarray(np.ascontiguousarray(
-        corners.transpose(0, 3, 1, 2)))
-    dev = np.asarray(je._pack_grad_corners_device(planar, H, W))
-    assert np.array_equal(host, dev)
+        je.plan_to_device_args(plans[1], expanded_lut,
+                               layout=("merged",) + combined[1:])
 
 
 def test_salt_d1_color0_model():

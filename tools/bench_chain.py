@@ -5,7 +5,6 @@ only, configurable steps/batch, so kernel experiments get a validated
 on-chip number in ~a minute instead of a full bench run.
 
 Usage: python tools/bench_chain.py [steps] [batch]
-Env: YAIK_* engine flags apply (e.g. YAIK_GRAD_FINAL=1 A/B).
 """
 import os
 import pathlib
@@ -20,18 +19,15 @@ import numpy as np
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(pathlib.Path(__file__).parent.parent
-                      / ".jax_bench_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-
 from yaik_tpu.decoder import jax_engine, planner  # noqa: E402
 from yaik_tpu.format import lut as lutmod  # noqa: E402
+from yaik_tpu.utils import compile_cache  # noqa: E402
 
 FIX = pathlib.Path(__file__).parent.parent / "tests" / "fixtures"
 
 
 def main():
+    compile_cache.configure()
     STEPS = int(sys.argv[1]) if len(sys.argv) > 1 else 16
     BATCH = int(sys.argv[2]) if len(sys.argv) > 2 else 128
     expanded = lutmod.expand_lut(
@@ -45,13 +41,11 @@ def main():
     wgt = ((flat * 2654435761) % (1 << 32)).astype(np.uint32).reshape(
         h, w, 3)
 
-    t3m = jax_engine.combine_t3_modes(
-        [jax_engine.t3_pack_mode(plans[n], expanded) for n in names],
-        [plans[n] for n in names])
+    layout = jax_engine.batch_layout([plans[n] for n in names], expanded)
     dev_args = {}
     for n in names:
         shifts, tab, args = jax_engine.plan_to_device_args(
-            plans[n], expanded, t3_modes=t3m, resident=True)
+            plans[n], expanded, layout=layout)
 
         def rep(x):
             x = np.asarray(x)
@@ -66,7 +60,8 @@ def main():
 
     def batch_chk(t, s, a):
         a = list(a)
-        a[7] = jax_engine.salt_d1_color0(a[7], s)
+        a[jax_engine.D1_PRM_ARG] = jax_engine.salt_d1_color0(
+            a[jax_engine.D1_PRM_ARG], s)
         out = vdec(t, *a)
         return jnp.sum(out.astype(jnp.uint32) * wgt_dev[None],
                        dtype=jnp.uint32)

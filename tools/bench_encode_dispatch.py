@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the encoder's device scoring bundle dispatch (the module whose
-128 ms/8-image wall bounds encode_scoring_mpix_s) - warm, synced, median
-of N. For minute-scale iteration on the values-stage rewrite; the
-checksummed bench lane stays the certification.
+wall time bounds encode_scoring_mpix_s) - warm, synced, median of N. For
+minute-scale iteration; the checksummed bench lane stays the
+certification.
 
 Usage: python tools/bench_encode_dispatch.py [reps]
 """
@@ -14,30 +14,26 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-from PIL import Image
 
 import jax  # noqa: E402
-
-jax.config.update("jax_compilation_cache_dir",
-                  str(pathlib.Path(__file__).parent.parent
-                      / ".jax_bench_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 from yaik_tpu.encoder import bank as bankmod  # noqa: E402
 from yaik_tpu.encoder import batch as encbatch  # noqa: E402
 from yaik_tpu.encoder import device_pipeline as devp  # noqa: E402
 from yaik_tpu.encoder.context import EncoderConfig  # noqa: E402
+from yaik_tpu.utils import compile_cache, png  # noqa: E402
 
 FIX = pathlib.Path(__file__).parent.parent / "tests" / "fixtures"
 B = int(os.environ.get("B", "8"))
 
 
 def main():
+    compile_cache.configure()
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 5
     bank = bankmod.load_bank(str(FIX / "Bank3D"))
     cfg = EncoderConfig()
     tables = devp.bank_device_tables(bank)
-    img = np.asarray(Image.open(FIX / "img512.png").convert("RGB"))
+    img = png.read_png(FIX / "img512.png", rgb=True)
     imgs = [np.ascontiguousarray(np.roll(img, 8 * i, axis=1))
             for i in range(B)]
     h, w = img.shape[:2]

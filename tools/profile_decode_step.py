@@ -5,8 +5,7 @@ loop) and print an aggregated per-op time table.
 Usage: python tools/profile_decode_step.py [outdir]
 Writes the xplane/trace.json.gz under outdir (default /tmp/yaik_trace) and
 prints the top HLO ops by self time, aggregated by op kind, so kernel work
-targets measured cost (BASELINE.md round-2 breakdown came from ablations;
-this is the op-level view).
+targets measured cost.
 """
 import glob
 import gzip
@@ -59,7 +58,7 @@ def main():
         return
     with gzip.open(traces[-1], "rt") as f:
         tr = json.load(f)
-    # TPU op events live on the device "XLA Ops" threads; aggregate by name
+    # device op events live on the /device: planes; aggregate by name
     pid_names = {e["pid"]: e["args"].get("name", "")
                  for e in tr["traceEvents"]
                  if e.get("ph") == "M" and e.get("name") == "process_name"}
@@ -69,7 +68,7 @@ def main():
         if e.get("ph") != "X" or "dur" not in e:
             continue
         pname = pid_names.get(e.get("pid"), "")
-        if "TPU" not in pname and "/device:" not in pname:
+        if "/device:" not in pname:
             continue
         name = e["name"]
         # collapse fusion instance suffixes: fusion.123 -> fusion

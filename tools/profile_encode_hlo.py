@@ -59,7 +59,7 @@ def main():
         if e.get("ph") != "X" or "dur" not in e:
             continue
         pname = pid_names.get(e.get("pid"), "")
-        if "TPU" not in pname and "/device:" not in pname:
+        if "/device:" not in pname:
             continue
         per_name[e["name"]] += e["dur"]
         total += e["dur"]

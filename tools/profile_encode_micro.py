@@ -18,7 +18,7 @@ from yaik_tpu.encoder import bank as bankmod  # noqa: E402
 from yaik_tpu.encoder import batch as encbatch  # noqa: E402
 from yaik_tpu.encoder import device_pipeline as devp  # noqa: E402
 from yaik_tpu.encoder import jax_scoring  # noqa: E402
-from yaik_tpu.ops import pallas_kernels as pk  # noqa: E402
+from yaik_tpu.ops.score48 import score48  # noqa: E402
 
 FIX = pathlib.Path(__file__).resolve().parent.parent / "tests" / "fixtures"
 B, SIZE = 8, 512
@@ -65,10 +65,10 @@ def main():
         d = jnp.asarray(rng.integers(1, 128, (T, 3), np.int32))
 
         print(f"pass {tw}x{th}: T={T} P={P} E={E}")
-        timed("  score48 pallas", jax.jit(
-            lambda c, a: pk.score48(c, a, qpts)), c, alive)
+        timed("  score48 (Triton route)", jax.jit(
+            lambda c, a: score48(c, a, qpts)), c, alive)
 
-        tc = max(1, 16384 // P)
+        tc = max(1, jax_scoring.VALUES_CHUNK_PX // P)
         pad = (-T) % tc
         def mk_vals():
             def f(tiles, alive, a_c, b_c, mode48, mn, d):

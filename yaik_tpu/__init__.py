@@ -1,9 +1,9 @@
-"""yaik_tpu: a TPU-native rebuild of the YAIK tile-based image codec.
+"""yaik_tpu: a JAX rebuild of the YAIK tile-based image codec.
 
-Reference: KLab/YAIK (C++). This package re-expresses the codec TPU-first:
-host-side chunk demux / entropy (zstd + palette codec) + JAX/Pallas device
-kernels for all pixel work, with bit-exact stream compatibility against the
-C++ reference.
+Reference: KLab/YAIK (C++). This package re-expresses the codec for an
+accelerator: host-side chunk demux / entropy (zstd + palette codec) + JAX
+device code for all pixel work, with bit-exact stream compatibility
+against the C++ reference.
 
 Layout:
   format/   - bitstream structs, swizzle spec, LUT bank + expansion

@@ -31,8 +31,8 @@ def _load_bank(path):
 
 
 def _png(path):
-    from PIL import Image
-    return np.asarray(Image.open(path))
+    from yaik_tpu.utils import png
+    return png.read_png(path)
 
 
 def _maybe_trace(args):
@@ -85,8 +85,8 @@ def cmd_encode(args):
 
 
 def cmd_decode(args):
-    from PIL import Image
     from yaik_tpu.decoder import api
+    from yaik_tpu.utils import png
     stream = pathlib.Path(args.input).read_bytes()
     lut2d = (pathlib.Path(args.lut2d).read_bytes()
              if args.lut2d else None)
@@ -98,7 +98,7 @@ def cmd_decode(args):
     with prof, _maybe_trace(args):
         img = api.decode_image(stream, lut, engine=args.engine)
     dt = time.perf_counter() - t0
-    Image.fromarray(img).save(args.output)
+    png.write_png(args.output, img)
     print(f"{args.input}: {img.shape[1]}x{img.shape[0]}"
           f"{'+A' if img.shape[2] == 4 else ''} in {dt:.2f}s -> {args.output}")
     if args.profile:
@@ -119,9 +119,9 @@ def cmd_lut(args):
 
 
 def cmd_mine(args):
-    from PIL import Image
     from yaik_tpu.encoder import mining
-    imgs = [np.asarray(Image.open(p).convert("RGB")) for p in args.images]
+    from yaik_tpu.utils import png
+    imgs = [png.read_png(p, rgb=True) for p in args.images]
     if args.mode == "2d":
         n, total = mining.mine_bank2d(imgs, args.out_dir,
                                       max_tables=args.max_tables,
@@ -150,15 +150,14 @@ def cmd_mine_report(args):
     corpus bpp, PSNR, and per-technique pixel shares for both."""
     import json as _json
 
-    from PIL import Image
-
     from yaik_tpu.decoder import api
     from yaik_tpu.encoder import bank as bankmod
     from yaik_tpu.encoder import mining
     from yaik_tpu.encoder.batch import encode_corpus
+    from yaik_tpu.utils import png
     from yaik_tpu.utils.stats import analyze
 
-    imgs = [np.asarray(Image.open(p).convert("RGB")) for p in args.images]
+    imgs = [png.read_png(p, rgb=True) for p in args.images]
     n, total = mining.mine_bank(imgs, args.out_dir,
                                 max_tables=args.max_tables,
                                 checkpoint=args.checkpoint,

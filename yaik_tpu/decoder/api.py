@@ -5,7 +5,7 @@ YAIK_Init/YAIK_AssignLUT/YAIK_DecodeImagePre/YAIK_DecodeImage).
 2D banks - the reference's AssignLUT deprecates the latter, YAIK_API.cpp:
 229-234; ours loads it for 2DTL streams); `decode_image` decodes one
 stream. The default engine is the bit-exact host path; engine="jax" uses the
-TPU kernels (same results, validated in tests).
+device engine (same results, validated in tests).
 """
 from __future__ import annotations
 

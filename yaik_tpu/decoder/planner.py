@@ -4,10 +4,10 @@ device-ready tensors.
 The sequential parts of YAIK decoding - zstd, the palette codec, corner
 dedup, quad-claim replay, and the shared index-stream cursors - are all
 O(tiles), not O(pixels). This module runs them once on the host (numpy) and
-emits a DecodePlan shaped for the TPU: everything the device touches is
-DENSE over the full tile grid of each pass, so the pixel kernels
-(yaik_tpu.decoder.jax_engine) use only reshapes, broadcasts, and one-hot
-matmuls - no per-pixel gather/scatter, which do not vectorize on TPU.
+emits a DecodePlan shaped for the device: everything the device touches is
+DENSE over the full tile grid of each pass, so the pixel passes
+(yaik_tpu.decoder.jax_engine) need only reshapes, broadcasts, matmuls and
+the per-tile LUT-row gather - no scatter.
 
   - per gradient pass: corner-color grid snapshot + accept grid
   - per 3D size pass: accept grid, per-tile 64-entry LUT slices, min/max

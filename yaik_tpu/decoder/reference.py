@@ -1,9 +1,9 @@
 """Bit-exact host (numpy) YAIK decoder.
 
-This is the semantic reference for the TPU path: a direct, readable port of
+This is the semantic reference for the device path: a direct, readable port of
 the reference decoder's behavior (decoder/YAIK_API.cpp chunk loop,
 YAIK_Gradient.cpp, YAIK_3DTile.cpp) validated byte-for-byte against
-reference-decoded fixtures. The JAX/Pallas decoder reuses this module's chunk
+reference-decoded fixtures. The JAX decoder reuses this module's chunk
 demux and is tested against its output.
 
 Planes are stored de-swizzled as [H8, W8] u8 (H8/W8 = image rounded up to 8);

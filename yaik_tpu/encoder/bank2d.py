@@ -86,10 +86,10 @@ def load_pattern_png(path: str) -> np.ndarray | None:
     nonzero R channel become (x, y) points. The reference computes the pixel
     index with a hardcoded 64 stride (:7957), so only 64-wide PNGs are
     well-defined; we require them."""
-    from PIL import Image
+    from yaik_tpu.utils import png
     if not os.path.exists(path):
         return None
-    img = np.asarray(Image.open(path).convert("RGB"))
+    img = png.read_png(path, rgb=True)
     if img.shape[1] != 64:
         raise ValueError("Bank2D patterns must be 64 px wide")
     ys, xs = np.nonzero(img[:, :, 0])

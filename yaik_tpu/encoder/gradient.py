@@ -8,7 +8,7 @@ rejectFactor of the bilinear blend of the 4 corner colors. Accepted tiles
 emit their (Round6-rounded, CompressF-posterized) corners - deduplicated via
 the mappedRGB corner grid - into the chunk's RGB stream in scan order.
 
-Scoring here is vectorized over ALL tile positions at once (the TPU-kernel
+Scoring here is vectorized over ALL tile positions at once (the device
 formulation); only stream emission is sequential (corner dedup order).
 """
 from __future__ import annotations

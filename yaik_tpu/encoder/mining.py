@@ -285,7 +285,7 @@ def mine_bank2d(images, out_dir, max_tables=12, max_candidates=256,
                 engine="host"):
     """images -> Bank2D pattern PNGs loadable by encoder.bank2d (and by the
     reference's Load2DPattern). Greedy max-coverage like the 3D miner."""
-    from PIL import Image as _Image
+    from yaik_tpu.utils import png
     clouds = []
     for im in images:
         clouds.extend(capture_clouds_2d(np.asarray(im)))
@@ -310,6 +310,6 @@ def mine_bank2d(images, out_dir, max_tables=12, max_candidates=256,
     for k, pts in enumerate(picked):
         img = np.zeros((64, 64, 3), np.uint8)
         img[pts[:, 1], pts[:, 0]] = 255
-        _Image.fromarray(img).save(
-            os.path.join(out_dir, f"t{k + 1}_tileMap{2000 + k}.lut.png"))
+        png.write_png(
+            os.path.join(out_dir, f"t{k + 1}_tileMap{2000 + k}.lut.png"), img)
     return len(picked), len(clouds)

@@ -356,7 +356,7 @@ int dyn1d_plane(const uint8_t* plane, const uint8_t* claim, int w, int h,
 // Decode-planner replay: the per-tile sequential stages of building a dense
 // DecodePlan (decoder/planner.py is the readable reference). Mirrors the
 // reference's tile-by-tile stream walk (YAIK_API.cpp:1248-1420) but writes
-// dense per-tile tensors for the TPU engine instead of pixels.
+// dense per-tile tensors for the device engine instead of pixels.
 // ---------------------------------------------------------------------------
 
 // GTIL corner-stream first-touch dedup: ids[4n] corner grid indices in read

@@ -4,7 +4,7 @@ monster images.
 YAIK's parallelism axes (SURVEY section 2.5): there is no TP/PP/SP/EP
 analog in a codec - the axes are (a) tile-parallel inside the kernels,
 (b) DATA-parallel over the image batch (config 5: texture corpora on a
-v5e-8 mesh), and (c) spatial sharding of one large image's tile grid
+device mesh), and (c) spatial sharding of one large image's tile grid
 (config 4: 4K stills), which is what `decode_spatial` does by splitting
 the dense decode plan into horizontal bands (every plan tensor is
 tile-grid-indexed, so bands are pure slices; the corner grids carry their
@@ -55,32 +55,6 @@ def _batched_decoder(shifts, nargs, aspec=None):
         fn = jax.jit(jax.vmap(core, in_axes=(None,) + (0,) * nargs))
         _FN_CACHE[key] = fn
     return fn
-
-
-def _common_t3_modes(plans, expanded):
-    """Batch-uniform T3 packing mode (merged-4x4 layers when every image
-    merges, else legacy with per-pass dictionary eligibility ANDed), so
-    every image in a stacked batch packs the same arg structure."""
-    modes = [jax_engine.t3_pack_mode(p, expanded) for p in plans]
-    return jax_engine.combine_t3_modes(modes, plans)
-
-
-def _common_t2_merged(plans, expanded2d):
-    """Batch-uniform 2DTL packing: merged-4x4 layers only when EVERY
-    image with 2DTL passes merges (<= 2 layers), so stacked t2 pytrees
-    share one structure. Returns the t2_merged kwarg value."""
-    if expanded2d is None or not any(p.tile2d for p in plans):
-        return None          # no 2DTL anywhere - moot, keep the default
-    if not (jax_engine.USE_PALLAS
-            and jax.devices()[0].platform == "tpu"):
-        return False         # merged layers need the fused Pallas kernel
-    if not all(jax_engine.t2_merge_plan(p, expanded2d) is not None
-               for p in plans if p.tile2d):
-        return False
-    if all(jax_engine.t2_dict_ok(p, expanded2d)
-           for p in plans if p.tile2d):
-        return True          # dict-packed single-dispatch form
-    return "gather"          # merged layers, dense per-block table rows
 
 
 def _common_alpha_spec(plans):
@@ -135,15 +109,13 @@ def decode_batch(streams, lut, mesh: Mesh | None = None):
         raise ValueError("decode_batch cannot mix alpha/non-alpha "
                          "streams in one batch")
     aspec = _common_alpha_spec(plans)
-    t3m = _common_t3_modes(plans, expanded)
-    t2m = _common_t2_merged(plans, expanded2d)
+    layout = jax_engine.batch_layout(plans, expanded)
     all_args = []
     shifts = None
     for p in plans:
         shifts, tab, a = jax_engine.plan_to_device_args(p, expanded,
                                                         expanded2d,
-                                                        t3_modes=t3m,
-                                                        t2_merged=t2m)
+                                                        layout=layout)
         all_args.append(a if aspec is not None else _strip_alpha_arg(a))
     b_args = _stack_args(all_args)
 
@@ -244,13 +216,12 @@ def decode_spatial(stream: bytes, lut, mesh: Mesh | None = None,
         while j < len(bands) and bands[j].height == bands[i].height:
             j += 1
         grp = bands[i:j]
-        t3m = _common_t3_modes(grp, expanded)
-        t2m = _common_t2_merged(grp, expanded2d)
+        layout = jax_engine.batch_layout(grp, expanded)
         shifts, tab, args0 = jax_engine.plan_to_device_args(
-            grp[0], expanded, expanded2d, t3_modes=t3m, t2_merged=t2m)
+            grp[0], expanded, expanded2d, layout=layout)
         all_args = [args0] + [
             jax_engine.plan_to_device_args(b, expanded, expanded2d,
-                                           t3_modes=t3m, t2_merged=t2m)[2]
+                                           layout=layout)[2]
             for b in grp[1:]]
         b_args = _stack_args(all_args)
         fn = _batched_decoder(shifts, len(b_args))
@@ -269,8 +240,7 @@ def decode_corpus(streams, lut, batch_size: int = 8,
                   planner_workers: int | None = None,
                   mesh: Mesh | None = None) -> list[np.ndarray]:
     """End-to-end pipelined corpus decode: while the device renders batch
-    k's pixels, the host plans batch k+1's streams (planning is the
-    end-to-end bottleneck - the device path runs at GPix/s). Streams are
+    k's pixels, the host plans batch k+1's streams. Streams are
     grouped by image size; short batches are padded so every dispatch hits
     the compiled executable. Returns RGB(A) arrays in input order,
     bit-exact with decode_image (tested).
@@ -278,8 +248,7 @@ def decode_corpus(streams, lut, batch_size: int = 8,
     planner_workers: thread count for within-batch planning (default
     cpu_count). The hot planning stages - zstd, the palette codec, and the
     native pass-scatter replay - are ctypes calls that release the GIL, so
-    planning scales across host cores on multi-core TPU-VM hosts (the
-    aggregate v5e-8 target needs ~1 core per 35 MPix/s of planning).
+    planning scales across host cores.
 
     mesh: optional data-parallel mesh; each dispatched batch is sharded
     over its "data" axis (batch_size must divide evenly)."""
@@ -312,22 +281,19 @@ def decode_corpus(streams, lut, batch_size: int = 8,
                                                    expanded2d)
                              for i in chunk]
                 aspec = _common_alpha_spec(plans)
-                t3m = _common_t3_modes(plans, expanded)
-                t2m = _common_t2_merged(plans, expanded2d)
+                layout = jax_engine.batch_layout(plans, expanded)
                 args = []
                 for p in plans:
                     shifts, tab, a = jax_engine.plan_to_device_args(
-                        p, expanded, expanded2d, t3_modes=t3m,
-                        t2_merged=t2m)
+                        p, expanded, expanded2d, layout=layout)
                     args.append(a if aspec is not None
                                 else _strip_alpha_arg(a))
                 fn = _batched_decoder(shifts, len(args[0]), aspec)
                 args += [args[0]] * (batch_size - len(args))
                 tab_d, b_args = _put_sharded(tab, _stack_args(args), mesh)
                 out = fn(tab_d, *b_args)
-                out.copy_to_host_async()   # before any further enqueue
-                return out, plans          # (older-buffer fetches wedge
-                                           # this runtime)
+                out.copy_to_host_async()   # download overlaps the next plan
+                return out, plans
 
             pending = None
             for s in range(0, len(idxs), batch_size):

@@ -41,9 +41,9 @@ def enabled() -> bool:
 
 
 def _save(path: str, arr: np.ndarray) -> None:
-    from PIL import Image
+    from yaik_tpu.utils import png
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    Image.fromarray(arr).save(path)
+    png.write_png(path, arr)
 
 
 def begin_decode() -> None:

@@ -15,7 +15,7 @@ Usage:
     with profiler.stage("my-stage"):       # explicit stage
         ...
 
-    with profiler.device_trace("/tmp/tb"):  # XLA/TPU trace -> TensorBoard
+    with profiler.device_trace("/tmp/tb"):  # XLA device trace -> TensorBoard
         ...
 
 Timers are no-ops unless enabled (zero overhead on the hot paths beyond one
@@ -109,7 +109,7 @@ def report(profile: "_Profile | None" = None) -> str:
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
-    """Capture an XLA/TPU profiler trace viewable in TensorBoard
+    """Capture an XLA device profiler trace viewable in TensorBoard
     (jax.profiler.trace wrapper; falls back to a no-op if unavailable)."""
     try:
         import jax
