@@ -36,7 +36,9 @@ def test_score48_interpret_matches_plain(P):
 
 def test_score48_inside_shard_map():
     """The kernel as the mesh encode runs it: per-device shards of the
-    tiles, replicated patterns, check_vma=False (encoder/batch.py)."""
+    tiles, replicated patterns. (Interpret mode's block loop carries no
+    varying axes, so this numeric check runs without JAX's check; the
+    test below traces the compiled form with the check on.)"""
     from jax.sharding import PartitionSpec as P
     c, alive, qpts = _inputs(2, 16, 16, 2)
     mesh = jax.make_mesh((4,), ("data",))
@@ -46,6 +48,27 @@ def test_score48_inside_shard_map():
     got = np.asarray(jax.jit(f)(c, alive, qpts))
     assert np.array_equal(got, np.asarray(tile3d_score_device(c, alive,
                                                                qpts)))
+
+
+def test_score48_declares_output_variance():
+    """Under shard_map with the varying-axes check on (as the mesh encode
+    runs), the Triton-route call types: its sums vary over the tiles'
+    shard axis."""
+    from jax.sharding import PartitionSpec as P
+    c, alive, qpts = _inputs(3, 16, 16, 2)
+    mesh = jax.make_mesh((4,), ("data",))
+    seen = []
+
+    def body(c, a, q):
+        out = score48(c, a, q)
+        seen.append(jax.typeof(out).vma)
+        return out
+
+    f = jax.shard_map(body, mesh=mesh, in_specs=(P("data"), P("data"), P()),
+                      out_specs=P("data"))
+    traced = jax.jit(f).trace(c, alive, qpts)
+    assert seen == [frozenset({"data"})]
+    assert traced.out_info.shape == (16, 2, 48)
 
 
 def test_score48_rejects_tile_not_dividing_block():

@@ -76,14 +76,43 @@ def test_ucol_byte_exact(name):
         assert chunk == bytes(gold)
         return
     mine, ref = _ucol_payload(chunk), _ucol_payload(bytes(gold))
-    if mine[0][-1] != ref[0][-1]:
-        # the pass's accept/skip cost model reads compressed sizes
-        # (EncoderContext.cpp:2093-2106), so another zstd build can steer
-        # it to another palette; then only zstd 1.3.4 can show parity
-        pytest.skip(f"system zstd steers the cost model to {mine[0][-1]} "
-                    f"colors vs the reference's {ref[0][-1]}; byte parity "
-                    f"needs the reference zstd 1.3.4")
-    assert mine == ref
+    if mine[0][-1] == ref[0][-1]:
+        assert mine == ref
+        return
+    # The pass's accept/skip cost model reads compressed sizes
+    # (EncoderContext.cpp:2093-2106), so another zstd build can steer it to
+    # accept more or fewer colors; only zstd 1.3.4 shows palette and byte
+    # parity. What the cost model does not steer must still hold: the frame
+    # fields, the golden's colors and claimed pixels among ours, and a
+    # lossless decode that equals the golden's wherever the golden claims
+    # or we do not.
+    assert mine[0][:4] + mine[0][6:7] == ref[0][:4] + ref[0][6:7]
+    few, many = sorted((mine, ref), key=lambda p: p[0][-1])
+    pal = lambda p: {bytes(p[1][i:i + 3]) for i in range(0, len(p[1]), 3)}
+    assert pal(few) <= pal(many)
+    (d_mine, c_mine), (d_ref, c_ref) = (_ucol_decode(c, w, h)
+                                        for c in (chunk, bytes(gold)))
+    c_few, c_many = ((c_mine, c_ref) if few is mine else (c_ref, c_mine))
+    assert (c_few <= c_many).all() and c_few.sum() > 100
+    assert np.array_equal(d_mine[c_mine], rgb[c_mine])
+    assert np.array_equal(d_ref[c_ref], rgb[c_ref])
+    assert np.array_equal(d_mine[~c_many | c_few], d_ref[~c_many | c_few])
+
+
+def _ucol_decode(chunk, w, h):
+    """A stream of the UCOL chunk alone, decoded: (rgb, mask of the pixels
+    the chunk's map claims)."""
+    stream = (FileHeader(MAGIC, 1, w, h, 0).pack() + chunk
+              + struct.pack("<I", 0xDEADBEEF))
+    out = decref.decode(stream, (FIXTURES / "LutFile.lut").read_bytes())
+    hdr = UniqueColorHeader.unpack(chunk, 8)
+    _, mp = decref.decode_ucol_map(hdr, chunk[8 + UniqueColorHeader.size():])
+    n = np.flatnonzero(mp)
+    tile, wu = n >> 6, hdr.w >> 3
+    claimed = np.zeros((h, w), bool)
+    claimed[((tile // wu) << 3) | ((n >> 3) & 7),
+            ((tile % wu) << 3) | (n & 7)] = True
+    return out, claimed
 
 
 @pytest.mark.parametrize("name", ["img64", "img512"])

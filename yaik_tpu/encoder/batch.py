@@ -117,7 +117,9 @@ class _Precomputed:
 
 # Device-scoring pixel ceiling PER DISPATCH. Images beyond it score on
 # device in row BANDS (encode_image_banded) - the scoring transients stay
-# O(band), bytes identical.
+# O(band), bytes identical. Memory does not bind it on an H100: XLA's
+# memory analysis of one 2 MPix dispatch (8 images of 512^2) is 94 MB of
+# arguments, outputs and temporaries. Larger dispatches are not timed.
 DEVICE_SCORE_MAX_PIX = 2 * 1024 * 1024
 
 
@@ -197,14 +199,12 @@ def _all_batch_compact_mesh_fn(reject_factor, caps, mesh):
     from jax.sharding import PartitionSpec as P
     core = _all_batch_compact_fn(reject_factor, caps).__wrapped__
 
-    # check_vma=False: the scoring kernel's pallas_call (ops.score48)
-    # declares no per-axis variance for its output
     def sharded(p8_b, qpts, pts, factors, perms):
         return jax.shard_map(
             core, mesh=mesh,
             in_specs=(P("data"), P(), P(), P(),
                       tuple(P() for _ in perms)),
-            out_specs=P("data"), check_vma=False)(
+            out_specs=P("data"))(
                 p8_b, qpts, pts, factors, perms)
 
     fn = jax.jit(sharded)
@@ -551,7 +551,7 @@ def encode_image_banded_mesh(img, bank: bankmod.Bank,
     fn = jax.jit(jax.shard_map(
         core, mesh=mesh,
         in_specs=(P("data"), P(), P(), P()),
-        out_specs=(P("data"), P("data")), check_vma=False))
+        out_specs=(P("data"), P("data"))))
     pg_b, p3_b = fn(jax.device_put(p8, NamedSharding(mesh, P("data"))),
                     *tables)
     pg_b, p3_b = np.asarray(pg_b), np.asarray(p3_b)

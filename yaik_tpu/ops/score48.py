@@ -78,9 +78,15 @@ def score48(c, alive, qpts, interpret=False):
     x, q = _operands(c, alive, qpts)
     x = jnp.pad(x, ((0, tpad - T), (0, 0), (0, 0))).reshape(tpad * P, K)
     q = jnp.pad(q, ((0, 0), (0, npad - n)))
+    # under shard_map the sums vary over every mesh axis the inputs vary
+    # over (the tiles' shard axis); the replicated patterns are cast to
+    # the same axes so that the product's operands agree
+    vma = jax.typeof(x).vma | jax.typeof(q).vma
+    x, q = (jax.lax.pcast(v, tuple(vma - jax.typeof(v).vma), to="varying")
+            if vma - jax.typeof(v).vma else v for v in (x, q))
     out = pl.pallas_call(
         partial(_kernel, P),
-        out_shape=jax.ShapeDtypeStruct((tpad, npad), jnp.int32),
+        out_shape=jax.ShapeDtypeStruct((tpad, npad), jnp.int32, vma=vma),
         grid=(tpad // tb, npad // COLS),
         in_specs=[pl.BlockSpec((ROWS, K), lambda i, j: (i, 0)),
                   pl.BlockSpec((8 * K, COLS), lambda i, j: (0, j))],
